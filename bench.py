@@ -1,127 +1,145 @@
 #!/usr/bin/env python
-"""Benchmark harness — prints ONE JSON line for the driver.
+"""KD train-step benchmark — prints the device, then ONE JSON line.
 
-Metric (BASELINE.json:2): KD train images/sec/chip at 513² (teacher+student
-fwd/bwd). Workload = config #2 shape: ResNet-101 DeepLabV3+ teacher →
-MobileNetV2 cheap-conv student, bf16 compute, batch sized for one v5e chip.
+Workload (BASELINE.json config #2 shape): ResNet-101 DeepLabV3+ teacher →
+MobileNetV2 DeepLabV3+ student with its head cheap-conv-replaced, bf16
+compute, 513² crops, batch 16, fixed device-resident inputs (the input
+pipeline is not timed). Reports steady-state ms/step and img/s, the first
+call's seconds (compile included), peak device memory, and the analytic
+roofline bounds of utils.flops against the device's published peaks
+(utils.flops.PEAKS: a device that is not in that table is an error, so this
+never reports a rate against an assumed peak).
 
-vs_baseline = measured / target, where target = 90% of the analytic conv
-roofline (BASELINE.md): roofline_img_s = achievable_TFLOPs / TFLOPs_per_img,
-computed from the actual conv FLOPs of the built graphs at 513² (counted by
-ops.flops) with a 50% conv-efficiency assumption on v5e (197 bf16 TFLOP/s).
+Usage: python bench.py   (env KDCC_BENCH_BATCH, KDCC_BENCH_STUDENT and
+KDCC_BENCH_SCOPE select variants, e.g. KDCC_BENCH_STUDENT=
+deeplabv3plus_resnet50 KDCC_BENCH_SCOPE=backbone.layer3,backbone.layer4,
+classifier for a student whose backbone blocks are replaced).
 """
 
 from __future__ import annotations
 
 import json
+import os
 import time
 
 
-def main() -> None:
-    import jax
+def build_workload(*, batch: int, hw: int, num_classes: int = 21,
+                   teacher_name: str = "deeplabv3plus_resnet101",
+                   student_name: str = "deeplabv3plus_mobilenet",
+                   scope="classifier", dtype="bfloat16", seed: int = 0):
+    """Teacher, cheap-conv student, optimizer, jitted KD step and one
+    random batch (host-S2D packed when both stems accept it, as the data
+    pipeline does). Returns a dict with step_fn, init_state, state,
+    t_state, batch."""
     import jax.numpy as jnp
     import numpy as np
-    from flax import nnx
 
-    from kd_cheap_conv_tpu.kd import KDConfig, replace_cheap_convs
-    from kd_cheap_conv_tpu.kd.replace import CheapConvSpec
-    from kd_cheap_conv_tpu.models import build_model
-    from kd_cheap_conv_tpu.train import make_kd_train_step, make_optimizer
+    from kd_cheap_conv import config, nnx
+    from kd_cheap_conv.kd import KDConfig, replace_cheap_convs
+    from kd_cheap_conv.kd.replace import CheapConvSpec
+    from kd_cheap_conv.models import build_model
+    from kd_cheap_conv.ops.conv import s2d_pack, supports_host_s2d
+    from kd_cheap_conv.train import make_kd_train_step, make_optimizer
 
-    import os
-    batch = int(os.environ.get("KDCC_BENCH_BATCH", "16"))
-    # Variant knobs (VERDICT round-1 item 10): KDCC_BENCH_SCOPE=
-    # backbone.layer3,backbone.layer4,classifier with
-    # KDCC_BENCH_STUDENT=deeplabv3plus_resnet50 measures a student whose
-    # BACKBONE blocks are cheap-conv-replaced (the fork's thesis), with the
-    # roofline recomputed for the cheaper graph automatically.
-    student_name = os.environ.get("KDCC_BENCH_STUDENT",
-                                  "deeplabv3plus_mobilenet")
-    scope = tuple(os.environ.get("KDCC_BENCH_SCOPE", "classifier").split(","))
-    hw = 513
-    dtype = jnp.bfloat16
-
-    teacher = build_model("deeplabv3plus_resnet101", num_classes=21,
-                          output_stride=16, dtype=dtype, rngs=nnx.Rngs(0))
-    student = build_model(student_name, num_classes=21,
-                          output_stride=16, dtype=dtype, rngs=nnx.Rngs(1))
-    replace_cheap_convs(student, CheapConvSpec(kind="separable"),
-                        scope=scope if len(scope) > 1 else scope[0])
-
+    dt = None if dtype is None else jnp.dtype(dtype)
+    teacher = build_model(teacher_name, num_classes=num_classes,
+                          output_stride=16, dtype=dt, rngs=nnx.Rngs(seed))
+    student = build_model(student_name, num_classes=num_classes,
+                          output_stride=16, dtype=dt,
+                          rngs=nnx.Rngs(seed + 1))
+    replace_cheap_convs(student, CheapConvSpec(kind="separable"), scope=scope)
     cfg = KDConfig(temperature=4.0, alpha=0.5, beta=0.5)
     _, params, _ = nnx.split(student, nnx.Param, ...)
     tx = make_optimizer({"student": params}, lr=1e-3, max_iters=10_000,
                         label_fn=lambda d: (
                             "backbone" if d.startswith("student.backbone")
                             else "head"))
-    init_state, step_fn, t_state = make_kd_train_step(student, teacher, tx, cfg)
-    state = init_state()
-
-    rng = np.random.RandomState(0)
-    images_np = rng.randn(batch, hw, hw, 3).astype(np.float32)
-    from kd_cheap_conv_tpu import config as kdcc_config
-    from kd_cheap_conv_tpu.ops.conv import (s2d_pack,
-                                            s2d_pack_channel_sublane,
-                                            supports_host_s2d)
-    if (kdcc_config.host_s2d_enabled() and supports_host_s2d(student)
+    init_state, step_fn, t_state = make_kd_train_step(student, teacher, tx,
+                                                      cfg)
+    rng = np.random.RandomState(seed)
+    # per-image colour offsets: images that differ in their means, as real
+    # ones do (iid noise images all pool to the same ASPP image feature,
+    # which leaves the pooling branch's train-mode BN ill-conditioned)
+    images = (rng.randn(batch, hw, hw, 3)
+              + rng.randn(batch, 1, 1, 3)).astype(np.float32)
+    if (config.host_s2d_enabled() and supports_host_s2d(student)
             and supports_host_s2d(teacher)):
-        # KDCC_HOST_S2D: the pipeline packs on the host (overlapped with
-        # the step); here it happens once outside the timed loop, which
-        # measures exactly the device-side saving
-        images_np = s2d_pack(images_np, channel_sublane=(
-            s2d_pack_channel_sublane(student, teacher)))
-    images = jnp.asarray(images_np)
-    labels = jnp.asarray(rng.randint(0, 21, (batch, hw, hw)), jnp.int32)
+        images = s2d_pack(images)
+    labels = rng.randint(0, num_classes, (batch, hw, hw)).astype(np.int32)
+    return {"teacher": teacher, "student": student, "step_fn": step_fn,
+            "init_state": init_state, "state": init_state(),
+            "t_state": t_state,
+            "batch": (jnp.asarray(images), jnp.asarray(labels))}
 
-    # warmup / compile
-    state, metrics = step_fn(state, (images, labels), t_state)
+
+def time_steps(w: dict, *, iters: int = 20, warmup: int = 2) -> dict:
+    """Compile, warm up, then time `iters` chained steps ending in
+    block_until_ready. Updates w["state"]; returns the timings."""
+    import jax
+
+    t0 = time.perf_counter()
+    state, metrics = w["step_fn"](w["state"], w["batch"], w["t_state"])
     jax.block_until_ready(metrics["loss"])
-
-    iters = 20
+    first_call_s = time.perf_counter() - t0
+    for _ in range(warmup):
+        state, metrics = w["step_fn"](state, w["batch"], w["t_state"])
+    jax.block_until_ready(metrics["loss"])
     t0 = time.perf_counter()
     for _ in range(iters):
-        state, metrics = step_fn(state, (images, labels), t_state)
+        state, metrics = w["step_fn"](state, w["batch"], w["t_state"])
     jax.block_until_ready(metrics["loss"])
     dt = time.perf_counter() - t0
-    img_per_s = batch * iters / dt
+    w["state"] = state
+    n = w["batch"][0].shape[0]
+    return {"first_call_s": first_call_s, "ms_per_step": 1e3 * dt / iters,
+            "img_per_s": n * iters / dt, "iters": iters,
+            "loss": float(metrics["loss"])}
 
-    # Memory-aware analytic roofline. v2 (round 3, tools/roofline_v2.py):
-    # traffic-complete bound over the real step jaxpr — fwd + exact bwd
-    # convs, loss/resize matmuls, residual-add streams, maxpool — each at
-    # max(FLOPs/peak, bytes/HBM-bw) under ideal fusion. Round-4 fix
-    # (VERDICT r3 item 1 / advisor high): the bound is computed from a
-    # FRESH stock rebuild of the whole workload (kd_step_stock_bound), not
-    # from the measured step_fn — construction-time Pallas decisions and
-    # pjit's warmup-keyed jaxpr cache both leaked fast paths into the
-    # "stock" trace, inflating BENCH_r03's target to an impossible 502
-    # (v2 bound above the conv-only v1 bound). The walker now also rejects
-    # any trace containing a pallas_call. Target = 90% of v2 (north_star).
-    from kd_cheap_conv_tpu.utils.flops import kd_step_stock_bound
 
-    roofline_v1, bound_s, _, tflops_per_img = kd_step_stock_bound(
-        batch, hw, student_name=student_name,
-        scope=scope if len(scope) > 1 else scope[0])
+def main() -> None:
+    import jax
+
+    from kd_cheap_conv.runtime import (enable_compile_cache,
+                                       gpu_name_and_power_limit)
+    from kd_cheap_conv.utils.flops import device_peaks, kd_step_bound
+
+    enable_compile_cache()
+    dev = jax.devices()[0]
+    peak_flops, hbm_bw = device_peaks(dev.device_kind)
+    card = gpu_name_and_power_limit()
+    print(f"device: {dev.platform} {dev.device_kind} x{jax.device_count()}; "
+          f"card: {card}")
+
+    batch = int(os.environ.get("KDCC_BENCH_BATCH", "16"))
+    student_name = os.environ.get("KDCC_BENCH_STUDENT",
+                                  "deeplabv3plus_mobilenet")
+    scope = tuple(os.environ.get("KDCC_BENCH_SCOPE", "classifier").split(","))
+    hw = 513
+    w = build_workload(batch=batch, hw=hw, student_name=student_name,
+                       scope=scope)
+    t = time_steps(w)
+    peak_mem = dev.memory_stats().get("peak_bytes_in_use")
+
+    v1_img_s, bound_s, _, tflops_per_img = kd_step_bound(
+        batch, hw, peak_flops=peak_flops, hbm_bw=hbm_bw,
+        student_name=student_name, scope=scope)
     roofline_img_s = batch / bound_s
-    target = 0.9 * roofline_img_s
-
     print(json.dumps({
-        "metric": "kd_train_images_per_sec_per_chip_513",
-        "value": round(img_per_s, 2),
-        "unit": "img/s/chip",
-        "vs_baseline": round(img_per_s / target, 4),
+        "metric": "kd_train_images_per_sec_513",
+        "value": t["img_per_s"],
+        "unit": "img/s",
+        "device": {"platform": dev.platform, "kind": dev.device_kind,
+                   "count": jax.device_count(), "card": card},
         "extra": {
             "batch": batch,
-            "step_ms": round(1e3 * dt / iters, 2),
-            "tflops_per_img": round(tflops_per_img, 4),
-            "roofline_img_s_memaware": round(roofline_img_s, 2),
-            "target_img_s": round(target, 2),
-            "roofline_img_s_v1_convonly": round(roofline_v1, 2),
-            "target_img_s_v1": round(0.9 * roofline_v1, 2),
-            # invariant: a bound that only ADDS traffic terms can never be
-            # faster than the conv-only bound (False = denominator bug;
-            # pinned by tests/test_roofline_integrity.py)
-            "v2_le_v1": bool(roofline_img_s <= roofline_v1 + 1e-6),
-            "loss": float(metrics["loss"]),
+            "step_ms": t["ms_per_step"],
+            "first_call_s": t["first_call_s"],
+            "peak_bytes_in_use": peak_mem,
+            "tflops_per_img": tflops_per_img,
+            "roofline_img_s_memaware": roofline_img_s,
+            "roofline_share": t["img_per_s"] / roofline_img_s,
+            "roofline_img_s_v1_convonly": v1_img_s,
+            "loss": t["loss"],
         },
     }))
 

@@ -1,11 +1,7 @@
 #!/usr/bin/env python
 """Config #5 bench (BASELINE.json:12): batched multi-scale+flip TTA student
-inference at 513², one XLA program per TTA sweep. Secondary metric (the
-driver runs bench.py); prints one JSON line.
-
-The eval-mode folded-BN Pallas kernels (KDCC_PALLAS_IR=1 for the
-MobileNetV2 backbone) engage inside the jitted TTA program when enabled —
-TTA is exactly the eval-mode path they target; A/B via that env var.
+inference at 513², one XLA program per TTA sweep. Prints the device, then
+one JSON line.
 """
 
 from __future__ import annotations
@@ -20,12 +16,19 @@ def main() -> None:
     import jax
     import jax.numpy as jnp
     import numpy as np
-    from flax import nnx
-    from kd_cheap_conv_tpu.inference import make_tta_predict_fn
-    from kd_cheap_conv_tpu.kd import replace_cheap_convs
-    from kd_cheap_conv_tpu.kd.replace import CheapConvSpec
-    from kd_cheap_conv_tpu.models import build_model
+    from kd_cheap_conv import nnx
+    from kd_cheap_conv.inference import make_tta_predict_fn
+    from kd_cheap_conv.kd import replace_cheap_convs
+    from kd_cheap_conv.kd.replace import CheapConvSpec
+    from kd_cheap_conv.models import build_model
+    from kd_cheap_conv.runtime import (enable_compile_cache,
+                                       gpu_name_and_power_limit)
 
+    enable_compile_cache()
+    dev = jax.devices()[0]
+    card = gpu_name_and_power_limit()
+    print(f"device: {dev.platform} {dev.device_kind} x{jax.device_count()}; "
+          f"card: {card}")
     batch = int(os.environ.get("KDCC_BENCH_BATCH", "8"))
     hw = int(os.environ.get("KDCC_BENCH_HW", "513"))
     dtype = jnp.bfloat16
@@ -51,13 +54,14 @@ def main() -> None:
     img_per_s = batch * iters / dt
 
     print(json.dumps({
-        "metric": "tta_inference_images_per_sec_per_chip_513",
-        "value": round(img_per_s, 2),
-        "unit": "img/s/chip",
-        "vs_baseline": 0.0,
+        "metric": "tta_inference_images_per_sec_513",
+        "value": img_per_s,
+        "unit": "img/s",
+        "device": {"platform": dev.platform, "kind": dev.device_kind,
+                   "count": jax.device_count(), "card": card},
         "extra": {
             "batch": batch,
-            "ms_per_image": round(1e3 * dt / (iters * batch), 2),
+            "ms_per_image": 1e3 * dt / (iters * batch),
             "scales": 6, "flip": True,
         },
     }))

@@ -1,94 +1,58 @@
 #!/usr/bin/env python
-"""Config #3 bench (BASELINE.json:9): Xception-65 teacher -> depthwise-
-separable student, Cityscapes-shaped 769² crops, 19 classes. Secondary
-metric (the driver runs bench.py / config #2); prints one JSON line.
+"""Config #3 bench (BASELINE.json:9): Xception-65 teacher -> Xception-65
+student with its head cheap-conv-replaced, Cityscapes-shaped 769² crops,
+19 classes, batch 4, bf16. Prints the device, then one JSON line; the
+roofline is taken against the device's published peaks (utils.flops.PEAKS,
+an unknown device is an error).
 
-769 is prime: exercises the fused loss kernel's masked row tiles and the
-class-major resize on non-divisible shapes on real hardware.
+769 is prime: exercises the class-major resize and the loss on
+non-divisible shapes.
 """
 
 from __future__ import annotations
 
 import json
-import time
 
 
 def main() -> None:
     import jax
-    import jax.numpy as jnp
-    import numpy as np
-    from flax import nnx
 
-    from kd_cheap_conv_tpu.kd import KDConfig, replace_cheap_convs
-    from kd_cheap_conv_tpu.kd.replace import CheapConvSpec
-    from kd_cheap_conv_tpu.models import build_model
-    from kd_cheap_conv_tpu.train import make_kd_train_step, make_optimizer
+    from bench import build_workload, time_steps
+    from kd_cheap_conv.runtime import (enable_compile_cache,
+                                       gpu_name_and_power_limit)
+    from kd_cheap_conv.utils.flops import device_peaks, kd_step_bound
+
+    enable_compile_cache()
+    dev = jax.devices()[0]
+    peak_flops, hbm_bw = device_peaks(dev.device_kind)
+    card = gpu_name_and_power_limit()
+    print(f"device: {dev.platform} {dev.device_kind} x{jax.device_count()}; "
+          f"card: {card}")
 
     batch, hw, ncls = 4, 769, 19
-    dtype = jnp.bfloat16
-    teacher = build_model("deeplabv3plus_xception", num_classes=ncls,
-                          output_stride=16, dtype=dtype, rngs=nnx.Rngs(0))
-    student = build_model("deeplabv3plus_xception", num_classes=ncls,
-                          output_stride=16, dtype=dtype, rngs=nnx.Rngs(1))
-    replace_cheap_convs(student, CheapConvSpec(kind="separable"),
-                        scope="classifier")
-
-    cfg = KDConfig(temperature=4.0, alpha=0.5, beta=0.5)
-    _, params, _ = nnx.split(student, nnx.Param, ...)
-    tx = make_optimizer({"student": params}, lr=1e-3, max_iters=10_000,
-                        label_fn=lambda d: (
-                            "backbone" if d.startswith("student.backbone")
-                            else "head"))
-    init_state, step_fn, t_state = make_kd_train_step(student, teacher, tx, cfg)
-    state = init_state()
-
-    rng = np.random.RandomState(0)
-    images_np = rng.randn(batch, hw, hw, 3).astype(np.float32)
-    from kd_cheap_conv_tpu import config as kdcc_config
-    from kd_cheap_conv_tpu.ops.conv import s2d_pack, supports_host_s2d
-    if (kdcc_config.host_s2d_enabled() and supports_host_s2d(student)
-            and supports_host_s2d(teacher)):
-        # KDCC_HOST_S2D (round 5: Xception entry conv now consumes the
-        # packed form too): pipeline packs on the host, here once outside
-        # the timed loop — measures exactly the device-side saving
-        images_np = s2d_pack(images_np)
-    images = jnp.asarray(images_np)
-    labels = jnp.asarray(rng.randint(0, ncls, (batch, hw, hw)), jnp.int32)
-
-    state, metrics = step_fn(state, (images, labels), t_state)
-    jax.block_until_ready(metrics["loss"])
-    iters = 10
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        state, metrics = step_fn(state, (images, labels), t_state)
-    jax.block_until_ready(metrics["loss"])
-    dt = time.perf_counter() - t0
-    img_per_s = batch * iters / dt
-
-    # v2 traffic-complete roofline from a FRESH stock rebuild (round-4
-    # integrity fix, same as bench.py: tracing the measured step_fn leaks
-    # construction-time Pallas decisions + pjit's warmup-keyed jaxpr cache
-    # into the "stock" trace); v1 conv-only kept alongside for continuity.
-    from kd_cheap_conv_tpu.utils.flops import kd_step_stock_bound
-
-    roofline_v1, bound_s, _, _ = kd_step_stock_bound(
-        batch, hw, teacher_name="deeplabv3plus_xception",
-        student_name="deeplabv3plus_xception", scope="classifier",
-        num_classes=ncls)
+    name = "deeplabv3plus_xception"
+    w = build_workload(batch=batch, hw=hw, num_classes=ncls,
+                       teacher_name=name, student_name=name)
+    t = time_steps(w, iters=10)
+    v1_img_s, bound_s, _, _ = kd_step_bound(
+        batch, hw, peak_flops=peak_flops, hbm_bw=hbm_bw, teacher_name=name,
+        student_name=name, num_classes=ncls)
     roofline = batch / bound_s
     print(json.dumps({
-        "metric": "kd_train_images_per_sec_per_chip_769_xception",
-        "value": round(img_per_s, 2),
-        "unit": "img/s/chip",
-        "vs_baseline": round(img_per_s / (0.9 * roofline), 4),
+        "metric": "kd_train_images_per_sec_769_xception",
+        "value": t["img_per_s"],
+        "unit": "img/s",
+        "device": {"platform": dev.platform, "kind": dev.device_kind,
+                   "count": jax.device_count(), "card": card},
         "extra": {
             "batch": batch,
-            "step_ms": round(1e3 * dt / iters, 2),
-            "roofline_img_s_memaware": round(roofline, 2),
-            "roofline_img_s_v1_convonly": round(roofline_v1, 2),
-            "target_img_s": round(0.9 * roofline, 2),
-            "v2_le_v1": bool(roofline <= roofline_v1 + 1e-6),
-            "loss": float(metrics["loss"]),
+            "step_ms": t["ms_per_step"],
+            "first_call_s": t["first_call_s"],
+            "peak_bytes_in_use": dev.memory_stats().get("peak_bytes_in_use"),
+            "roofline_img_s_memaware": roofline,
+            "roofline_share": t["img_per_s"] / roofline,
+            "roofline_img_s_v1_convonly": v1_img_s,
+            "loss": t["loss"],
         },
     }))
 

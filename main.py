@@ -6,9 +6,9 @@
 fork's KD flags (teacher, temperature/alpha/beta/gamma, hint taps, cheap-conv
 kind, progressive schedule, cached teacher logits).
 
-TPU-native execution: the train step is jitted and SPMD-sharded over a 1-D
-'data' mesh covering all visible devices; batches stream through the
-double-buffered device prefetcher.
+Execution: the train step is jitted and SPMD-sharded over a 1-D 'data' mesh
+covering all visible devices; batches stream through the double-buffered
+device prefetcher.
 """
 
 from __future__ import annotations
@@ -22,7 +22,8 @@ import numpy as np
 
 
 def get_argparser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description="TPU-native DeepLab KD (kd_cheap_conv_tpu)")
+    p = argparse.ArgumentParser(description="DeepLab KD by cheap-conv "
+                                "replacement (kd_cheap_conv)")
     # Dataset options (reference names)
     p.add_argument("--data_root", type=str, default="./datasets/data")
     p.add_argument("--dataset", type=str, default="voc",
@@ -59,7 +60,7 @@ def get_argparser() -> argparse.ArgumentParser:
                    help="unsupported offline; kept for CLI parity")
     p.add_argument("--ckpt_dir", type=str, default="checkpoints")
     p.add_argument("--bf16", action="store_true",
-                   help="bfloat16 compute (TPU fast path)")
+                   help="bfloat16 compute")
     p.add_argument("--num_workers", type=int, default=8)
     p.add_argument("--data_loader", type=str, default="threads",
                    choices=["threads", "grain"],
@@ -111,18 +112,15 @@ def get_argparser() -> argparse.ArgumentParser:
                    help="multi-scale+flip TTA during --test_only")
     p.add_argument("--tta_scales", type=str, default="0.5,0.75,1.0,1.25,1.5,1.75")
     p.add_argument("--val_results_dir", type=str, default="results")
-    # Multi-host SPMD (SURVEY.md §5.8): one process per host on a TPU pod
-    # slice; jax.distributed.initialize() discovers coordinator/peers from
-    # the TPU environment (or --coordinator_address for manual runs). The
-    # global device mesh then spans hosts, with data-parallel collectives
-    # over ICI/DCN inserted by XLA. Untestable on this single-host rig; the
-    # dryrun covers the single-host SPMD path.
+    # Multi-host SPMD (SURVEY.md §5.8): one process per host;
+    # jax.distributed.initialize() needs the coordinator address, process
+    # count and this process's id. The global device mesh then spans hosts,
+    # with data-parallel collectives inserted by XLA.
     p.add_argument("--multihost", action="store_true",
                    help="call jax.distributed.initialize() before backend "
                         "init (one process per host)")
     p.add_argument("--coordinator_address", type=str, default=None,
-                   help="host:port of process 0 (omit on TPU pods — "
-                        "auto-discovered)")
+                   help="host:port of process 0")
     p.add_argument("--num_processes", type=int, default=None)
     p.add_argument("--process_id", type=int, default=None)
     return p
@@ -130,8 +128,8 @@ def get_argparser() -> argparse.ArgumentParser:
 
 def get_dataset(opts):
     """Reference get_dataset(): dataset + train/val transforms."""
-    from kd_cheap_conv_tpu.data import Cityscapes, SyntheticSegmentation, VOCSegmentation
-    from kd_cheap_conv_tpu.data.transforms import train_transform, val_transform
+    from kd_cheap_conv.data import Cityscapes, SyntheticSegmentation, VOCSegmentation
+    from kd_cheap_conv.data.transforms import train_transform, val_transform
 
     if getattr(opts, "cached_det_transform", False) and opts.cached_logits:
         # cached-teacher mode distortion fix: a random-augmentation cache
@@ -163,16 +161,6 @@ def get_dataset(opts):
 
 
 def main(argv=None) -> int:
-    try:
-        return _main(argv)
-    finally:
-        # In-process callers (tests, notebooks) may run several mains per
-        # process: never leak the registered mesh into later model calls.
-        from kd_cheap_conv_tpu import config as _kdcc_config
-        _kdcc_config.set_active_mesh(None)
-
-
-def _main(argv=None) -> int:
     opts = get_argparser().parse_args(argv)
     if opts.download:
         print("--download is unsupported in this offline environment; "
@@ -184,6 +172,9 @@ def _main(argv=None) -> int:
 
     import jax
 
+    from kd_cheap_conv.runtime import enable_compile_cache
+
+    enable_compile_cache()
     if opts.multihost:
         # Must run before any backend touch; spans the device mesh across
         # hosts (SURVEY.md §5.8 "DCN across hosts").
@@ -196,19 +187,19 @@ def _main(argv=None) -> int:
               f"{jax.local_device_count()} of {jax.device_count()}")
 
     import jax.numpy as jnp
-    from flax import nnx
 
-    from kd_cheap_conv_tpu.data import make_loader, prefetch_to_device
-    from kd_cheap_conv_tpu.inference import make_predict_fn
-    from kd_cheap_conv_tpu.kd import KDConfig, replace_cheap_convs
-    from kd_cheap_conv_tpu.kd.distill import make_hint_adapters
-    from kd_cheap_conv_tpu.kd.replace import CheapConvSpec, convert_to_separable_conv
-    from kd_cheap_conv_tpu.models import build_model
-    from kd_cheap_conv_tpu.models.layers import set_bn_momentum
-    from kd_cheap_conv_tpu.parallel import make_mesh
-    from kd_cheap_conv_tpu.train import make_kd_train_step, make_optimizer, make_train_step
-    from kd_cheap_conv_tpu.train.checkpoint import load_checkpoint
-    from kd_cheap_conv_tpu.train.loop import LoopConfig, train_loop, validate
+    from kd_cheap_conv import nnx
+    from kd_cheap_conv.data import make_loader, prefetch_to_device
+    from kd_cheap_conv.inference import make_predict_fn
+    from kd_cheap_conv.kd import KDConfig, replace_cheap_convs
+    from kd_cheap_conv.kd.distill import make_hint_adapters
+    from kd_cheap_conv.kd.replace import CheapConvSpec, convert_to_separable_conv
+    from kd_cheap_conv.models import build_model
+    from kd_cheap_conv.models.layers import set_bn_momentum
+    from kd_cheap_conv.parallel import make_mesh
+    from kd_cheap_conv.train import make_kd_train_step, make_optimizer, make_train_step
+    from kd_cheap_conv.train.checkpoint import load_checkpoint
+    from kd_cheap_conv.train.loop import LoopConfig, train_loop, validate
 
     if opts.debug_nans:
         jax.config.update("jax_debug_nans", True)
@@ -216,11 +207,6 @@ def _main(argv=None) -> int:
     train_dst, val_dst, num_classes = get_dataset(opts)
     dtype = jnp.bfloat16 if opts.bf16 else None
     mesh = make_mesh()
-    if jax.device_count() > 1:
-        # model-internal Pallas fast paths (fused stem) read this at trace
-        # time and wrap themselves in shard_map over the data mesh
-        from kd_cheap_conv_tpu import config as kdcc_config
-        kdcc_config.set_active_mesh(mesh)
     print(f"Devices: {jax.device_count()} ({jax.devices()[0].platform}); "
           f"mesh={mesh.shape}")
     print(f"Dataset: {opts.dataset}, Train set: {len(train_dst)}, "
@@ -261,7 +247,7 @@ def _main(argv=None) -> int:
             replace_cheap_convs(model, spec, scope=scope, rngs=rngs)
         if opts.ckpt and os.path.exists(opts.ckpt):
             restore_model(model)
-        from kd_cheap_conv_tpu.utils import StreamSegMetrics
+        from kd_cheap_conv.utils import StreamSegMetrics
 
         model.eval()
         # config #5 on a mesh: batches shard over the data axis (the jitted
@@ -275,7 +261,7 @@ def _main(argv=None) -> int:
             mesh=mesh if jax.device_count() > 1 else None)
         if opts.tta:
             # config #5: batched multi-scale + flip TTA, one XLA program
-            from kd_cheap_conv_tpu.inference import make_tta_predict_fn
+            from kd_cheap_conv.inference import make_tta_predict_fn
 
             scales = tuple(float(s) for s in opts.tta_scales.split(","))
             tta_fn = make_tta_predict_fn(model, scales=scales, flip=True)
@@ -285,7 +271,7 @@ def _main(argv=None) -> int:
                 preds, _ = tta_fn(images)
                 metrics_acc.update(np.asarray(labels), np.asarray(preds))
                 if opts.save_val_results and saved < 8:
-                    from kd_cheap_conv_tpu.utils.visualizer import save_val_results
+                    from kd_cheap_conv.utils.visualizer import save_val_results
                     decode = getattr(val_dst, "decode_target",
                                      type(val_dst).decode_target)
                     save_val_results(opts.val_results_dir, saved,
@@ -297,8 +283,8 @@ def _main(argv=None) -> int:
         else:
             results = validate(model, val_loader, num_classes=num_classes)
             if opts.save_val_results:
-                from kd_cheap_conv_tpu.inference import make_predict_fn
-                from kd_cheap_conv_tpu.utils.visualizer import save_val_results
+                from kd_cheap_conv.inference import make_predict_fn
+                from kd_cheap_conv.utils.visualizer import save_val_results
                 predict = make_predict_fn(model)
                 decode = getattr(val_dst, "decode_target",
                                  type(val_dst).decode_target)
@@ -330,7 +316,7 @@ def _main(argv=None) -> int:
         if opts.teacher_ckpt and os.path.exists(opts.teacher_ckpt):
             if opts.teacher_ckpt.endswith(".pth"):
                 import torch
-                from kd_cheap_conv_tpu.train.checkpoint import import_torch_state_dict
+                from kd_cheap_conv.train.checkpoint import import_torch_state_dict
                 sd = torch.load(opts.teacher_ckpt, map_location="cpu")
                 sd = sd.get("model_state", sd)
                 n, missing = import_torch_state_dict(teacher, sd)
@@ -354,7 +340,7 @@ def _main(argv=None) -> int:
         if use_cached:
             # config #1 mode: student trains against precomputed logits;
             # the teacher forward leaves the hot loop entirely.
-            from kd_cheap_conv_tpu.kd.cached import (
+            from kd_cheap_conv.kd.cached import (
                 CachedLogitsDataset, precompute_teacher_logits)
 
             if not os.path.exists(opts.cached_logits):
@@ -378,9 +364,9 @@ def _main(argv=None) -> int:
 
     if opts.kd and opts.progressive:
         # config #4: stage-by-stage replacement + distill, then fine-tune.
-        from kd_cheap_conv_tpu.kd.progressive import (
+        from kd_cheap_conv.kd.progressive import (
             ProgressiveConfig, run_progressive)
-        from kd_cheap_conv_tpu.kd.replace import CheapConvSpec as _Spec
+        from kd_cheap_conv.kd.replace import CheapConvSpec as _Spec
 
         def batch_iter_factory():
             return prefetch_to_device(
@@ -406,8 +392,7 @@ def _main(argv=None) -> int:
         student.train()
         _, history = run_progressive(
             teacher, student, batch_iter_factory, pcfg,
-            input_hw=(opts.crop_size, opts.crop_size),
-            mesh=mesh if jax.device_count() > 1 else None)
+            input_hw=(opts.crop_size, opts.crop_size))
         print(f"Progressive schedule done: {len(history)} stages")
         return 0
 
@@ -427,24 +412,22 @@ def _main(argv=None) -> int:
     if opts.kd:
         init_state, step_fn, t_state = make_kd_train_step(
             model, teacher, tx, kd_cfg, adapters=adapters,
-            cached_teacher=use_cached,
-            mesh=mesh if jax.device_count() > 1 else None)
+            cached_teacher=use_cached)
     else:
-        init_state, step_fn = make_train_step(
-            model, tx, loss_type=opts.loss_type,
-            mesh=mesh if jax.device_count() > 1 else None)
+        init_state, step_fn = make_train_step(model, tx,
+                                              loss_type=opts.loss_type)
         t_state = None
     state = init_state()
 
     best0 = 0.0
     if opts.ckpt and opts.continue_training and os.path.exists(opts.ckpt):
-        from kd_cheap_conv_tpu.train.checkpoint import restore_train_state
+        from kd_cheap_conv.train.checkpoint import restore_train_state
         state, best0 = restore_train_state(opts.ckpt, state)
         print(f"Continue training from itrs={int(state.step)} "
               f"(best={best0:.4f}; optimizer+schedule restored)")
 
     if opts.data_loader == "grain":
-        from kd_cheap_conv_tpu.data.grain_pipeline import make_grain_loader
+        from kd_cheap_conv.data.grain_pipeline import make_grain_loader
 
         # Grain worker PROCESSES (not threads): in-process only when the
         # host has a single core (worker startup would just serialize there)
@@ -464,22 +447,18 @@ def _main(argv=None) -> int:
     # cached-teacher mode precomputed logits against normal images, and the
     # hint-tap/progressive paths are shape-transparent). Every model the
     # batch feeds must have an intact standard entry stem.
-    from kd_cheap_conv_tpu import config as kdcc_config
-    from kd_cheap_conv_tpu.ops.conv import (s2d_pack_channel_sublane,
-                                            supports_host_s2d)
+    from kd_cheap_conv import config as kdcc_config
+    from kd_cheap_conv.ops.conv import supports_host_s2d
     host_s2d = (kdcc_config.host_s2d_enabled() and not use_cached
                 and supports_host_s2d(model)
                 and (teacher is None or supports_host_s2d(teacher)))
-    s2d_cw = host_s2d and s2d_pack_channel_sublane(
-        *([model] if teacher is None else [model, teacher]))
     train_iter = prefetch_to_device(train_loader, mesh=mesh,
-                                    host_s2d=host_s2d,
-                                    s2d_channel_sublane=s2d_cw)
+                                    host_s2d=host_s2d)
 
     # Build the eval step ONCE (eval-mode graphdef; cached jit across val
     # intervals — rebuilding it per call would retrace every validation).
-    from kd_cheap_conv_tpu.train.steps import make_eval_step
-    from kd_cheap_conv_tpu.utils import StreamSegMetrics
+    from kd_cheap_conv.train.steps import make_eval_step
+    from kd_cheap_conv.utils import StreamSegMetrics
 
     model.eval()
     eval_graphdef, _, _ = nnx.split(model, nnx.Param, ...)
@@ -508,7 +487,7 @@ def _main(argv=None) -> int:
             # the first samples when --save_val_results is on (during
             # training too, not only --test_only)
             if opts.save_val_results and saved < 8:
-                from kd_cheap_conv_tpu.utils.visualizer import save_val_results
+                from kd_cheap_conv.utils.visualizer import save_val_results
                 decode = getattr(val_dst, "decode_target",
                                  type(val_dst).decode_target)
                 save_val_results(opts.val_results_dir, saved,
@@ -525,7 +504,7 @@ def _main(argv=None) -> int:
                           dataset_name=opts.dataset,
                           output_stride=opts.output_stride,
                           profile_dir=opts.profile_dir)
-    from kd_cheap_conv_tpu.utils import Visualizer
+    from kd_cheap_conv.utils import Visualizer
     vis = Visualizer(opts.vis_dir, enable=opts.enable_vis)
     state, best = train_loop(state=state, step_fn=step_fn,
                              train_iter=train_iter, cfg=loop_cfg,

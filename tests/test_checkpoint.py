@@ -7,12 +7,12 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 import torch
-from flax import nnx
+from kd_cheap_conv import nnx
 
-from kd_cheap_conv_tpu.models import build_model
-from kd_cheap_conv_tpu.models.layers import Conv2d
-from kd_cheap_conv_tpu.train import make_optimizer, make_train_step
-from kd_cheap_conv_tpu.train.checkpoint import (
+from kd_cheap_conv.models import build_model
+from kd_cheap_conv.models.layers import Conv2d
+from kd_cheap_conv.train import make_optimizer, make_train_step
+from kd_cheap_conv.train.checkpoint import (
     checkpoint_path,
     import_torch_state_dict,
     load_checkpoint,
@@ -63,7 +63,7 @@ def test_continue_training_full_resume(tmp_path):
     Catches the round-1 defect where resume restarted poly LR from base lr."""
     from jax.flatten_util import ravel_pytree
 
-    from kd_cheap_conv_tpu.train.checkpoint import restore_train_state
+    from kd_cheap_conv.train.checkpoint import restore_train_state
 
     rng = np.random.RandomState(0)
     batches = [(jnp.asarray(rng.randn(2, 33, 33, 3), jnp.float32),
@@ -112,7 +112,7 @@ def test_torch_import_conv_bn_parity():
         torch.nn.Conv2d(8, 4, 1),
     ).eval()
     # nnx mirror with same structure (paths 0.weight, 1.*, 3.*)
-    from kd_cheap_conv_tpu.models.layers import BatchNorm
+    from kd_cheap_conv.models.layers import BatchNorm
 
     class Mirror(nnx.Module):
         def __init__(self, rngs):
@@ -147,7 +147,7 @@ def test_torch_import_full_model_keys():
     """A reference-shaped state dict for our ResNet student maps losslessly."""
     model = build_model("deeplabv3plus_resnet50", num_classes=21)
     # export our own params as a fake torch state dict, then re-import
-    from kd_cheap_conv_tpu.train.checkpoint import _iter_params
+    from kd_cheap_conv.train.checkpoint import _iter_params
 
     sd = {}
     for path, (var, kind) in _iter_params(model):
@@ -160,3 +160,38 @@ def test_torch_import_full_model_keys():
         sd[key] = torch.from_numpy(np.ascontiguousarray(arr))
     n, missing = import_torch_state_dict(model, sd, strict=True)
     assert n == len(sd) and not missing
+
+
+def test_checkpoint_restore_with_target_checks_shapes(tmp_path):
+    """Restoring into a target validates every entry's shape and dtype and
+    returns the target's structure (tuples/NamedTuples included)."""
+    path = str(tmp_path / "ck")
+    opt = (np.zeros(3, np.float32), {"m": np.ones((2, 2), np.float32)})
+    save_checkpoint(path, cur_itrs=2, params={"w": np.ones(4, np.float32)},
+                    rest={}, opt_state=opt, best_score=0.5)
+    assert sorted(os.listdir(path)) == ["checkpoint.npz"]
+    target = {"cur_itrs": np.zeros((), np.int32),
+              "model_state": {"params": {"w": np.zeros(4, np.float32)},
+                              "rest": {}},
+              "optimizer_state": opt,
+              "scheduler_state": {"step": np.zeros((), np.int32)},
+              "best_score": np.zeros((), np.float32)}
+    got = load_checkpoint(path, target=target)
+    assert isinstance(got["optimizer_state"], tuple)
+    np.testing.assert_array_equal(got["model_state"]["params"]["w"],
+                                  np.ones(4))
+    bad = dict(target, model_state={"params": {"w": np.zeros(5, np.float32)},
+                                    "rest": {}})
+    with pytest.raises(ValueError, match="expected"):
+        load_checkpoint(path, target=bad)
+    missing = dict(target, extra=np.zeros(()))
+    with pytest.raises(ValueError, match="no entry"):
+        load_checkpoint(path, target=missing)
+
+
+def test_checkpoint_overwrite_replaces_contents(tmp_path):
+    path = str(tmp_path / "ck")
+    for itrs in (1, 2):
+        save_checkpoint(path, cur_itrs=itrs, params={}, rest={},
+                        opt_state=(), best_score=0.0)
+    assert int(load_checkpoint(path)["cur_itrs"]) == 2

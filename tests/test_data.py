@@ -4,7 +4,7 @@ label remap table, synthetic dataset determinism, loader batching, metrics.
 
 import numpy as np
 
-from kd_cheap_conv_tpu.data import (
+from kd_cheap_conv.data import (
     ExtNormalize,
     ExtRandomCrop,
     ExtRandomHorizontalFlip,
@@ -13,10 +13,10 @@ from kd_cheap_conv_tpu.data import (
     SyntheticSegmentation,
     make_loader,
 )
-from kd_cheap_conv_tpu.data.cityscapes import CLASSES, decode_target, encode_target
-from kd_cheap_conv_tpu.data.transforms import train_transform
-from kd_cheap_conv_tpu.data.voc import VOCSegmentation, voc_cmap
-from kd_cheap_conv_tpu.utils import StreamSegMetrics
+from kd_cheap_conv.data.cityscapes import CLASSES, decode_target, encode_target
+from kd_cheap_conv.data.transforms import train_transform
+from kd_cheap_conv.data.voc import VOCSegmentation, voc_cmap
+from kd_cheap_conv.utils import StreamSegMetrics
 
 
 def _img_lbl(h=40, w=60):

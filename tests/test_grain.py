@@ -3,9 +3,9 @@ deterministic sampling, disjoint host shards, CLI smoke."""
 
 import numpy as np
 
-from kd_cheap_conv_tpu.data import SyntheticSegmentation
-from kd_cheap_conv_tpu.data.grain_pipeline import make_grain_loader
-from kd_cheap_conv_tpu.data.transforms import train_transform
+from kd_cheap_conv.data import SyntheticSegmentation
+from kd_cheap_conv.data.grain_pipeline import make_grain_loader
+from kd_cheap_conv.data.transforms import train_transform
 
 
 def _ds(length=20):
@@ -56,3 +56,29 @@ def test_cli_grain_loader_smoke(tmp_path):
         "--ckpt_dir", str(tmp_path / "ck"), "--num_workers", "2",
     ]
     assert cli.main(args) == 0
+
+
+class _BackendProbe:
+    """A dataset whose samples record whether JAX has started a backend in
+    the process that loads them."""
+
+    def __len__(self):
+        return 4
+
+    def __getitem__(self, idx, rng=None):
+        from jax._src import xla_bridge
+
+        flag = int(xla_bridge.backends_are_initialized())
+        return (np.zeros((3, 3, 3), np.float32),
+                np.full((3, 3), flag, np.int32))
+
+
+def test_grain_workers_never_start_a_jax_backend():
+    """--data_loader grain runs its transforms in spawned worker processes;
+    none of them may initialize JAX (on a GPU a second backend would take
+    the card's memory)."""
+    batches = list(make_grain_loader(_BackendProbe(), batch_size=2,
+                                     shuffle=False, num_epochs=1,
+                                     num_workers=2))
+    assert len(batches) == 2
+    assert all(int(lbl.max()) == 0 for _, lbl in batches)

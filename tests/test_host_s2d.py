@@ -12,8 +12,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from kd_cheap_conv_tpu import config
-from kd_cheap_conv_tpu.ops.conv import (conv2d_s2d_packed, s2d_orig_size,
+from kd_cheap_conv import config
+from kd_cheap_conv.ops.conv import (conv2d_s2d_packed, s2d_orig_size,
                                         s2d_pack)
 
 RNG = np.random.RandomState(42)
@@ -84,9 +84,9 @@ def host_s2d_on():
 def test_model_packed_input_parity(name, host_s2d_on):
     """Full model: packed input == normal input (same weights), and the
     logits upsample to the ORIGINAL odd resolution."""
-    from flax import nnx
+    from kd_cheap_conv import nnx
 
-    from kd_cheap_conv_tpu.models import build_model
+    from kd_cheap_conv.models import build_model
 
     model = build_model(name, num_classes=5, output_stride=16,
                         rngs=nnx.Rngs(0))
@@ -106,7 +106,7 @@ def test_model_packed_input_parity(name, host_s2d_on):
 
 
 def test_prefetch_packs_images(host_s2d_on):
-    from kd_cheap_conv_tpu.data.pipeline import prefetch_to_device
+    from kd_cheap_conv.data.pipeline import prefetch_to_device
 
     imgs = RNG.randn(2, 13, 13, 3).astype(np.float32)
     lbls = RNG.randint(0, 5, (2, 13, 13)).astype(np.int32)

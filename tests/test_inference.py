@@ -4,11 +4,11 @@ batched flip equivalence to the per-augmentation loop.
 
 import numpy as np
 import jax.numpy as jnp
-from flax import nnx
+from kd_cheap_conv import nnx
 
-from kd_cheap_conv_tpu.inference import make_predict_fn, make_tta_predict_fn
-from kd_cheap_conv_tpu.models import build_model
-from kd_cheap_conv_tpu.ops.resize import resize_bilinear
+from kd_cheap_conv.inference import make_predict_fn, make_tta_predict_fn
+from kd_cheap_conv.models import build_model
+from kd_cheap_conv.ops.resize import resize_bilinear
 
 RNG = np.random.RandomState(0)
 

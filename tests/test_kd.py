@@ -7,19 +7,19 @@ import pytest
 import jax
 import jax.numpy as jnp
 import optax
-from flax import nnx
+from kd_cheap_conv import nnx
 
-from kd_cheap_conv_tpu.kd import (
+from kd_cheap_conv.kd import (
     KDConfig,
     backbone_stages,
     convert_to_separable_conv,
     replace_cheap_convs,
 )
-from kd_cheap_conv_tpu.kd.distill import make_hint_adapters
-from kd_cheap_conv_tpu.kd.replace import AtrousSeparableConvolution, CheapConvSpec
-from kd_cheap_conv_tpu.models import build_model
-from kd_cheap_conv_tpu.models.layers import Conv2d
-from kd_cheap_conv_tpu.train import make_kd_train_step, make_optimizer, make_train_step
+from kd_cheap_conv.kd.distill import make_hint_adapters
+from kd_cheap_conv.kd.replace import AtrousSeparableConvolution, CheapConvSpec
+from kd_cheap_conv.models import build_model
+from kd_cheap_conv.models.layers import Conv2d
+from kd_cheap_conv.train import make_kd_train_step, make_optimizer, make_train_step
 
 RNG = np.random.RandomState(0)
 
@@ -238,7 +238,7 @@ def test_supervised_train_step():
 
 
 def test_step_lr_schedule():
-    from kd_cheap_conv_tpu.train.optim import poly_schedule, step_schedule
+    from kd_cheap_conv.train.optim import poly_schedule, step_schedule
     s = step_schedule(0.1, step_size=100, gamma=0.1)
     assert float(s(0)) == pytest.approx(0.1)
     assert float(s(99)) == pytest.approx(0.1)

@@ -7,13 +7,13 @@ test, and it is resolution-independent.
 import numpy as np
 import pytest
 import jax.numpy as jnp
-from flax import nnx
+from kd_cheap_conv import nnx
 
-from kd_cheap_conv_tpu.models import MODEL_FACTORY, build_model
-from kd_cheap_conv_tpu.models.layers import set_bn_momentum
-from kd_cheap_conv_tpu.models.mobilenetv2 import mobilenet_v2
-from kd_cheap_conv_tpu.models.resnet import resnet50
-from kd_cheap_conv_tpu.models.xception import xception65
+from kd_cheap_conv.models import MODEL_FACTORY, build_model
+from kd_cheap_conv.models.layers import set_bn_momentum
+from kd_cheap_conv.models.mobilenetv2 import mobilenet_v2
+from kd_cheap_conv.models.resnet import resnet50
+from kd_cheap_conv.models.xception import xception65
 
 
 def _x(h=65, w=65, n=1):
@@ -110,9 +110,9 @@ def test_split_decoder_concat_parity(separable, monkeypatch):
     """fuse(cat(low, up)) == fuseA(low) + fuseB(up): the concat-split decoder
     (models/deeplab.py _call_split_fuse) is exact algebra for dense and
     separable fuse convs, in train mode (same BN moments) and for taps."""
-    from kd_cheap_conv_tpu import config
-    from kd_cheap_conv_tpu.kd import replace_cheap_convs
-    from kd_cheap_conv_tpu.kd.replace import CheapConvSpec
+    from kd_cheap_conv import config
+    from kd_cheap_conv.kd import replace_cheap_convs
+    from kd_cheap_conv.kd.replace import CheapConvSpec
 
     def build():
         m = build_model("deeplabv3plus_mobilenet", num_classes=7,
@@ -145,8 +145,8 @@ def test_split_decoder_concat_parity(separable, monkeypatch):
 
 def test_split_decoder_grouped_falls_back():
     """Grouped cheap convs straddle the 48/256 split — must NOT split."""
-    from kd_cheap_conv_tpu.kd import replace_cheap_convs
-    from kd_cheap_conv_tpu.kd.replace import CheapConvSpec
+    from kd_cheap_conv.kd import replace_cheap_convs
+    from kd_cheap_conv.kd.replace import CheapConvSpec
 
     m = build_model("deeplabv3plus_mobilenet", num_classes=7, rngs=nnx.Rngs(3))
     replace_cheap_convs(m, CheapConvSpec(kind="grouped", groups=4),
@@ -168,7 +168,7 @@ def test_split_decoder_grad_parity():
 
     import jax
 
-    from kd_cheap_conv_tpu import config
+    from kd_cheap_conv import config
 
     @contextlib.contextmanager
     def enable_x64():
@@ -225,10 +225,10 @@ def test_resnet_s2d_stem_parity():
     import numpy as np
     import jax
     import jax.numpy as jnp
-    from flax import nnx
+    from kd_cheap_conv import nnx
 
-    from kd_cheap_conv_tpu import config
-    from kd_cheap_conv_tpu.models.resnet import resnet50
+    from kd_cheap_conv import config
+    from kd_cheap_conv.models.resnet import resnet50
 
     m = resnet50(output_stride=16, rngs=nnx.Rngs(0))
     assert not m._stem_s2d_active()
@@ -261,10 +261,10 @@ def test_aspp_concat_split_parity():
     import numpy as np
     import jax
     import jax.numpy as jnp
-    from flax import nnx
+    from kd_cheap_conv import nnx
 
-    from kd_cheap_conv_tpu import config
-    from kd_cheap_conv_tpu.models.aspp import ASPP
+    from kd_cheap_conv import config
+    from kd_cheap_conv.models.aspp import ASPP
 
     def build():
         return ASPP(32, (2, 4, 6), out_channels=16, dropout_rate=0.0,
@@ -302,10 +302,10 @@ def test_aspp_concat_split_parity():
 def test_xception_conv1_s2d_parity():
     import numpy as np
     import jax.numpy as jnp
-    from flax import nnx
+    from kd_cheap_conv import nnx
 
-    from kd_cheap_conv_tpu import config
-    from kd_cheap_conv_tpu.models.xception import Xception65
+    from kd_cheap_conv import config
+    from kd_cheap_conv.models.xception import Xception65
 
     m = Xception65(output_stride=16, rngs=nnx.Rngs(0))
     m.eval()

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from kd_cheap_conv_tpu import native
+from kd_cheap_conv import native
 
 RNG = np.random.RandomState(0)
 
@@ -38,7 +38,7 @@ def test_hflip_matches_numpy():
 
 
 def test_fused_transform_uses_same_math():
-    from kd_cheap_conv_tpu.data.transforms import (
+    from kd_cheap_conv.data.transforms import (
         ExtNormalize, ExtToArray, ExtToNormalizedArray)
 
     img = RNG.randint(0, 256, (33, 35, 3)).astype(np.uint8)
@@ -51,7 +51,7 @@ def test_fused_transform_uses_same_math():
 
 
 def test_cityscapes_encode_still_correct():
-    from kd_cheap_conv_tpu.data.cityscapes import encode_target
+    from kd_cheap_conv.data.cityscapes import encode_target
 
     raw = np.arange(34, dtype=np.uint8).reshape(2, 17)
     enc = encode_target(raw)

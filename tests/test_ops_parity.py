@@ -12,9 +12,9 @@ import torch.nn.functional as F
 
 import jax.numpy as jnp
 
-from kd_cheap_conv_tpu.ops import conv2d, depthwise_conv2d, resize_bilinear
-from kd_cheap_conv_tpu.ops.conv import fixed_padding
-from kd_cheap_conv_tpu.ops.losses import (
+from kd_cheap_conv.ops import conv2d, depthwise_conv2d, resize_bilinear
+from kd_cheap_conv.ops.conv import fixed_padding
+from kd_cheap_conv.ops.losses import (
     cross_entropy,
     focal_loss,
     hint_l2_loss,
@@ -98,7 +98,7 @@ def test_bilinear_resize_matches_torch_half_pixel(size):
 def test_bilinear_resize_matmul_matches_torch(size):
     # the NHWC-preserving matmul form used by the decoder upsample
     # (ops.resize.resize_bilinear_matmul) is the same half-pixel operator
-    from kd_cheap_conv_tpu.ops.resize import resize_bilinear_matmul
+    from kd_cheap_conv.ops.resize import resize_bilinear_matmul
 
     x = RNG.randn(2, 17, 19, 5).astype(np.float32)
     got = resize_bilinear_matmul(jnp.asarray(x), size)
@@ -110,7 +110,7 @@ def test_bilinear_resize_matmul_matches_torch(size):
 def test_bilinear_resize_matmul_grad_matches_resize_grad():
     import jax
 
-    from kd_cheap_conv_tpu.ops.resize import resize_bilinear_matmul
+    from kd_cheap_conv.ops.resize import resize_bilinear_matmul
 
     x = jnp.asarray(RNG.randn(2, 9, 9, 4).astype(np.float32))
     g1 = jax.grad(lambda t: jnp.sum(jnp.sin(
@@ -165,7 +165,7 @@ def test_kd_kl_nonnegative_and_zero_at_match():
 
 def test_kd_kl_extreme_teacher_logits_finite():
     # untrained eval-mode teachers emit |logits| ~ 1e6; KL and its grad must
-    # stay finite (TPU exp range-reduction edge; see ops.losses)
+    # stay finite (fused exp range-reduction edge; see ops.losses)
     import jax
 
     s = jnp.asarray(RNG.randn(1, 8, 8, 21).astype(np.float32) * 5)
@@ -213,7 +213,7 @@ def test_losses_channel_axis_equivalence():
 
 
 def test_conv2d_gemm_matches_conv2d():
-    from kd_cheap_conv_tpu.ops.conv import conv2d_gemm
+    from kd_cheap_conv.ops.conv import conv2d_gemm
 
     for (ci, co, d) in [(8, 16, 1), (8, 16, 2), (16, 8, 6)]:
         x = RNG.randn(2, 19, 21, ci).astype(np.float32)
@@ -229,7 +229,7 @@ def test_conv2d_gemm_matches_conv2d():
 
 def test_conv2d_gemm_grad_matches():
     import jax
-    from kd_cheap_conv_tpu.ops.conv import conv2d_gemm
+    from kd_cheap_conv.ops.conv import conv2d_gemm
 
     x = jnp.asarray(RNG.randn(1, 9, 9, 8).astype(np.float32))
     w = jnp.asarray((RNG.randn(3, 3, 8, 8) * 0.1).astype(np.float32))

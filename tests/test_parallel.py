@@ -7,11 +7,11 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.sharding import NamedSharding, PartitionSpec as P
-from flax import nnx
+from kd_cheap_conv import nnx
 
-from kd_cheap_conv_tpu.models import build_model
-from kd_cheap_conv_tpu.parallel import make_mesh, replicate, shard_batch
-from kd_cheap_conv_tpu.train import make_optimizer, make_train_step
+from kd_cheap_conv.models import build_model
+from kd_cheap_conv.parallel import make_mesh, replicate, shard_batch
+from kd_cheap_conv.train import make_optimizer, make_train_step
 
 RNG = np.random.RandomState(0)
 
@@ -76,7 +76,7 @@ def test_sharded_bn_uses_global_batch_moments():
     """Sync-BN semantics: with a batch whose per-shard means differ wildly,
     train-mode BN must normalize with the GLOBAL batch moments. Crafted so
     there is no cancellation — the check is near-exact."""
-    from kd_cheap_conv_tpu.models.layers import BatchNorm
+    from kd_cheap_conv.models.layers import BatchNorm
 
     class M(nnx.Module):
         def __init__(self, rngs):
@@ -129,7 +129,7 @@ def test_graft_entry_single_chip():
 def test_eval_step_sharded_matches_replicated():
     """make_eval_step on mesh-sharded val batches produces the same
     confusion matrix as replicated compute (VERDICT r1 weak #5)."""
-    from kd_cheap_conv_tpu.train.steps import make_eval_step
+    from kd_cheap_conv.train.steps import make_eval_step
 
     mesh = make_mesh()
     model = build_model("deeplabv3plus_mobilenet", num_classes=6,
@@ -155,7 +155,7 @@ def test_tta_sharded_matches_replicated():
     """config #5 on a mesh: make_tta_predict_fn on batch-sharded inputs
     produces the same preds/probs as replicated compute (the jitted TTA
     program is GSPMD-partitioned from the input sharding)."""
-    from kd_cheap_conv_tpu.inference import make_tta_predict_fn
+    from kd_cheap_conv.inference import make_tta_predict_fn
 
     mesh = make_mesh()
     model = build_model("deeplabv3plus_mobilenet", num_classes=6,
@@ -172,3 +172,59 @@ def test_tta_sharded_matches_replicated():
     np.testing.assert_array_equal(np.asarray(preds_sh), np.asarray(preds_rep))
     np.testing.assert_allclose(np.asarray(probs_sh), np.asarray(probs_rep),
                                rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("n_devices", [2, 4, 8])
+def test_sharded_kd_step_matches_one_device(n_devices):
+    """The data-parallel KD step (main.py's multi-device path: data mesh,
+    batches placed by prefetch_to_device, uncommitted state) gives the same
+    loss and parameter update as one device on the same global batch. Run
+    in float64: at random init this step amplifies float32 summation-order
+    noise to ~1e-2 in the update, which would hide a real discrepancy."""
+    from kd_cheap_conv.data import prefetch_to_device
+    from kd_cheap_conv.kd import KDConfig, replace_cheap_convs
+    from kd_cheap_conv.kd.replace import CheapConvSpec
+    from kd_cheap_conv.train import make_kd_train_step
+
+    teacher = build_model("deeplabv3plus_mobilenet", num_classes=6,
+                          rngs=nnx.Rngs(0))
+    student = build_model("deeplabv3plus_mobilenet", num_classes=6,
+                          rngs=nnx.Rngs(1))
+    replace_cheap_convs(student, CheapConvSpec(kind="separable"),
+                        scope="classifier")
+    _, params, _ = nnx.split(student, nnx.Param, ...)
+    tx = make_optimizer({"student": params}, lr=0.01, max_iters=10,
+                        label_fn=lambda d: "head")
+    init, step, t_state = make_kd_train_step(
+        student, teacher, tx, KDConfig(temperature=2.0, alpha=0.5, beta=0.5))
+    rng = np.random.RandomState(n_devices)
+    host = (rng.randn(8, 33, 33, 3), rng.randint(0, 6, (8, 33, 33)))
+    jax.config.update("jax_enable_x64", True)
+    try:
+        f64 = lambda t: jax.tree.map(
+            lambda x: (jnp.asarray(x, jnp.float64)
+                       if jnp.issubdtype(x.dtype, jnp.floating)
+                       else jnp.array(x)), t)
+        p0 = jax.tree.map(np.asarray, f64(init().params))
+        t64 = f64(t_state)
+        s1, m1 = step(f64(init()), f64(host), t64)
+        mesh = make_mesh(jax.devices()[:n_devices])
+        batch = next(prefetch_to_device(iter([host]), mesh=mesh))
+        sn, mn = step(f64(init()), batch, t64)
+        assert len(batch[0].addressable_shards) == n_devices
+        assert batch[0].addressable_shards[0].data.shape[0] == 8 // n_devices
+        assert batch[0].dtype == jnp.float64
+        # the losses reduce in float32 (ops.losses casts logits to f32)
+        np.testing.assert_allclose(float(mn["loss"]), float(m1["loss"]),
+                                   rtol=1e-6)
+
+        def delta(s):
+            return np.concatenate([(np.asarray(a) - b).ravel()
+                                   for a, b in zip(jax.tree.leaves(s.params),
+                                                   jax.tree.leaves(p0))])
+
+        d1, dn = delta(s1), delta(sn)
+        # measured <= 6e-9; the update passes a float32 momentum buffer
+        assert np.linalg.norm(dn - d1) <= 1e-6 * np.linalg.norm(d1)
+    finally:
+        jax.config.update("jax_enable_x64", False)

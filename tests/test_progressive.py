@@ -5,12 +5,12 @@ resnet-teacher clone, 2 stages + fine-tune, a couple of iterations each.
 import pytest
 import numpy as np
 import jax.numpy as jnp
-from flax import nnx
+from kd_cheap_conv import nnx
 
-from kd_cheap_conv_tpu.kd.distill import KDConfig
-from kd_cheap_conv_tpu.kd.progressive import ProgressiveConfig, run_progressive
-from kd_cheap_conv_tpu.kd.replace import AtrousSeparableConvolution, CheapConvSpec
-from kd_cheap_conv_tpu.models import build_model
+from kd_cheap_conv.kd.distill import KDConfig
+from kd_cheap_conv.kd.progressive import ProgressiveConfig, run_progressive
+from kd_cheap_conv.kd.replace import AtrousSeparableConvolution, CheapConvSpec
+from kd_cheap_conv.models import build_model
 
 RNG = np.random.RandomState(0)
 

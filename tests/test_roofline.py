@@ -11,10 +11,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from kd_cheap_conv_tpu.utils.flops import (_walk_v2, full_step_roofline_seconds)
+from kd_cheap_conv.utils.flops import (_walk_v2, device_peaks,
+                                       full_step_roofline_seconds)
 
-PEAK = 197e12
-BW = 819e9
+PEAK, BW = device_peaks("NVIDIA H100 80GB HBM3")
 
 
 def _acc():
@@ -107,12 +107,12 @@ def test_recurses_into_pjit():
 def test_full_step_bound_tiny():
     """End-to-end: the bound for a tiny KD step is positive, finite, and
     dominated by convs; returns the breakdown bench.py embeds."""
-    from flax import nnx
+    from kd_cheap_conv import nnx
 
-    from kd_cheap_conv_tpu.kd import KDConfig, replace_cheap_convs
-    from kd_cheap_conv_tpu.kd.replace import CheapConvSpec
-    from kd_cheap_conv_tpu.models import build_model
-    from kd_cheap_conv_tpu.train import make_kd_train_step, make_optimizer
+    from kd_cheap_conv.kd import KDConfig, replace_cheap_convs
+    from kd_cheap_conv.kd.replace import CheapConvSpec
+    from kd_cheap_conv.models import build_model
+    from kd_cheap_conv.train import make_kd_train_step, make_optimizer
 
     teacher = build_model("deeplabv3plus_mobilenet", num_classes=5,
                           output_stride=16, rngs=nnx.Rngs(0))
@@ -130,7 +130,8 @@ def test_full_step_bound_tiny():
     images = jnp.zeros((1, 65, 65, 3), jnp.float32)
     labels = jnp.zeros((1, 65, 65), jnp.int32)
     bound, acc = full_step_roofline_seconds(step_fn, state, (images, labels),
-                                            t_state)
+                                            t_state, peak_flops=PEAK,
+                                            hbm_bw=BW)
     assert np.isfinite(bound) and bound > 0
     assert acc["conv_n"] > 50  # teacher + student fwd + student bwd convs
     assert acc["conv_s"] > 0.5 * bound

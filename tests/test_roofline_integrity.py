@@ -1,17 +1,8 @@
-"""Roofline-denominator integrity (round-4 fix; VERDICT r3 item 1).
+"""Roofline-bound integrity.
 
-BENCH_r03 recorded an impossible denominator: the v2 traffic-complete bound
-came out ABOVE the v1 conv-only bound because (a) construction-time Pallas
-decisions (AtrousSeparableConvolution fusability, the fused-loss closure in
-make_kd_train_step) survived config.stock_graph(), hiding convs inside
-pallas_call, and (b) pjit's jaxpr cache returned the warmup-time trace.
-These tests pin the three defenses:
-
-  1. the walker REJECTS any trace containing a pallas_call;
-  2. a polluted-construction module still traces stock (call-time re-check);
-  3. kd_step_stock_bound is knob-independent — the bound is the same no
-     matter which fast paths are enabled in config at call time;
-  4. (slow) at the bench shape, v2 bound img/s <= v1 conv-only img/s — a
+  1. the walker REJECTS any trace containing a pallas_call (a hand-written
+     kernel hides its convs/dots from the walker);
+  2. (slow) at the bench shape, v2 bound img/s <= v1 conv-only img/s — a
      bound that only adds traffic terms can never be faster.
 """
 
@@ -19,9 +10,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from kd_cheap_conv_tpu import config
-from kd_cheap_conv_tpu.utils.flops import (full_step_roofline_seconds,
-                                           kd_step_stock_bound)
+from kd_cheap_conv.utils.flops import (device_peaks,
+                                       full_step_roofline_seconds,
+                                       kd_step_bound)
+
+H100 = "NVIDIA H100 80GB HBM3"
 
 
 def test_walker_rejects_pallas_call():
@@ -36,64 +29,18 @@ def test_walker_rejects_pallas_call():
             interpret=True)(x)
 
     x = jnp.ones((8, 128), jnp.float32)
-    with pytest.raises(RuntimeError, match="stock-trace invariant"):
-        full_step_roofline_seconds(fn, x)
-
-
-def test_polluted_construction_traces_stock():
-    """A module whose fusability was decided with Pallas force-enabled must
-    still produce a pallas-free graph when traced under stock_graph()."""
-    from flax import nnx
-
-    from kd_cheap_conv_tpu.kd.replace import AtrousSeparableConvolution
-
-    prev = (config.use_pallas_separable, config.pallas_min_dilation)
-    config.use_pallas_separable = True
-    config.pallas_min_dilation = 2   # kernel default-disabled since round 4
-    try:
-        m = AtrousSeparableConvolution(16, 32, 3, padding=2, dilation=2,
-                                       rngs=nnx.Rngs(0))
-        assert m._fusable, "test needs a construction-time fused decision"
-    finally:
-        config.use_pallas_separable, config.pallas_min_dilation = prev
-
-    x = jnp.zeros((1, 16, 16, 16), jnp.float32)
-    with config.stock_graph():
-        jaxpr = jax.make_jaxpr(m)(x)
-    names = [e.primitive.name for e in jaxpr.jaxpr.eqns]
-    assert "pallas_call" not in names
-    assert names.count("conv_general_dilated") == 2  # depthwise + pointwise
-
-
-def test_stock_bound_knob_independent():
-    """The denominator must not move when fast-path knobs are flipped —
-    BENCH_r03's bug was exactly a knob-dependent target."""
-    v1_off, bound_off, acc_off, _ = kd_step_stock_bound(1, 65)
-
-    prev = (config.use_pallas_separable, config.use_pallas_stem,
-            config.use_pallas_ir, config.fuse_upsample_into_loss)
-    config.use_pallas_separable = True
-    config.use_pallas_stem = True
-    config.use_pallas_ir = True
-    config.fuse_upsample_into_loss = True
-    try:
-        v1_on, bound_on, acc_on, _ = kd_step_stock_bound(1, 65)
-    finally:
-        (config.use_pallas_separable, config.use_pallas_stem,
-         config.use_pallas_ir, config.fuse_upsample_into_loss) = prev
-
-    assert bound_on == pytest.approx(bound_off, rel=1e-12)
-    assert v1_on == pytest.approx(v1_off, rel=1e-12)
-    assert acc_on["conv_n"] == acc_off["conv_n"]
-    assert acc_off["pallas_n"] == 0
+    peak, bw = device_peaks(H100)
+    with pytest.raises(RuntimeError, match="cannot see inside"):
+        full_step_roofline_seconds(fn, x, peak_flops=peak, hbm_bw=bw)
 
 
 @pytest.mark.slow
 def test_v2_le_v1_at_bench_shape():
     """At the contract workload (b16/513²) the traffic-complete bound can
-    never exceed the conv-only bound; this is the invariant BENCH_r03
-    violated (557.9 > 547.2 img/s)."""
-    v1_img_s, bound_s, acc, _ = kd_step_stock_bound(16, 513)
+    never exceed the conv-only bound."""
+    peak, bw = device_peaks(H100)
+    v1_img_s, bound_s, acc, _ = kd_step_bound(16, 513, peak_flops=peak,
+                                              hbm_bw=bw)
     v2_img_s = 16.0 / bound_s
     assert v2_img_s <= v1_img_s + 1e-6
     assert acc["pallas_n"] == 0

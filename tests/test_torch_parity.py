@@ -13,10 +13,10 @@ import jax.numpy as jnp
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-from flax import nnx
+from kd_cheap_conv import nnx
 
-from kd_cheap_conv_tpu.models import build_model
-from kd_cheap_conv_tpu.train.checkpoint import import_torch_state_dict
+from kd_cheap_conv.models import build_model
+from kd_cheap_conv.train.checkpoint import import_torch_state_dict
 
 
 def _make_divisible(v, divisor=8):

@@ -32,10 +32,10 @@ def main(argv=None) -> int:
     opts = p.parse_args(argv)
 
     import torch
-    from flax import nnx
+    from kd_cheap_conv import nnx
 
-    from kd_cheap_conv_tpu.models import build_model
-    from kd_cheap_conv_tpu.train.checkpoint import (
+    from kd_cheap_conv.models import build_model
+    from kd_cheap_conv.train.checkpoint import (
         import_torch_state_dict, save_checkpoint)
 
     try:

@@ -1,14 +1,23 @@
 #!/usr/bin/env python
-"""Profile the KD train step on the real TPU and print a per-op time table.
+"""Profile the KD train step on the GPU and reduce the trace to device-op
+times.
 
-The image's tensorboard-plugin-profile is broken (protobuf mismatch), so this
-parses the xplane protobuf directly (SURVEY.md §5.1 tracing; VERDICT round-1
-item 2 'get a real profile first').
+Runs the bench.py workload (ResNet-101 teacher -> MobileNetV2 student,
+bf16), warms it up, traces a few steps with jax.profiler, and reads the
+GPU device planes ("/device:GPU:N") of the trace with
+jax.profiler.ProfileData; the step's compiled HLO (written beside the
+trace as step.hlo.txt) names the scope of each XLA fusion kernel. Per step it reports device busy time (union of
+kernel intervals), the idle share of the traced window, the top device
+ops, and the device time of the named-scope groups the models set:
+`teacher`, `student`, `kd_loss`, `logits_upsample` (the full-resolution
+16x upsample of both models' logits), `mnv2_f0_f6` (MobileNetV2
+features[0..6], forward and backward) and `optimizer`.
 
 Usage:
-  python tools/profile_kd.py [--teacher deeplabv3plus_resnet101]
-      [--student deeplabv3plus_mobilenet] [--batch 16] [--hw 513]
-      [--scope classifier] [--top 40] [--what kd|teacher|student]
+  python tools/profile_kd.py [--batch 16] [--hw 513] [--steps 3]
+      [--top 30] [--dir TRACE_DIR] [--json OUT.json]
+  python tools/profile_kd.py --trace FILE.xplane.pb [--hlo step.hlo.txt]
+      [--steps 3]   (reduce a recorded trace; needs no GPU)
 """
 
 from __future__ import annotations
@@ -16,6 +25,7 @@ from __future__ import annotations
 import argparse
 import collections
 import glob
+import json
 import os
 import re
 import sys
@@ -23,225 +33,193 @@ import tempfile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+GROUPS = ("teacher", "student", "kd_loss", "logits_upsample", "mnv2_f0_f6",
+          "optimizer")
 
-def parse_xplane(profile_dir: str, top: int = 40):
-    """Aggregate XLA-op durations from the newest xplane.pb under dir."""
-    from tensorflow.tsl.profiler.protobuf import xplane_pb2
 
-    paths = sorted(glob.glob(os.path.join(
-        profile_dir, "**", "*.xplane.pb"), recursive=True),
-        key=os.path.getmtime)
-    assert paths, f"no xplane.pb under {profile_dir}"
-    space = xplane_pb2.XSpace()
-    with open(paths[-1], "rb") as f:
-        space.ParseFromString(f.read())
+def _stats(ev) -> dict:
+    return {k: v for k, v in ev.stats}
 
-    rows = []  # (total_ps, count, name, category)
-    for plane in space.planes:
-        if "TPU" not in plane.name and "tpu" not in plane.name.lower():
+
+_HLO_OP = re.compile(r'^\s*(?:ROOT )?%?([\w.\-]+) = [^\n]*?'
+                     r'metadata=\{[^}\n]*?op_name="([^"]+)"', re.M)
+
+
+def hlo_op_names(hlo_text: str) -> dict:
+    """{HLO instruction name: op_name metadata} from compiled HLO text. The
+    op_name is the JAX name stack ("jit(f)/jvp(student)/..."), which names
+    XLA's generated fusion kernels, whose trace events carry only their
+    HLO name."""
+    names = {}
+    for m in _HLO_OP.finditer(hlo_text):
+        names[m.group(1)] = m.group(2)
+        # kernels launched from a command buffer (CUDA graph) carry the
+        # instruction name with "." spelled "_" as their event name
+        names[m.group(1).replace(".", "_")] = m.group(2)
+    return names
+
+
+def device_events(xplane_path: str, op_names: dict | None = None):
+    """[(plane, line, name, start_ns, dur_ns, scope)] for every kernel event
+    on the GPU device planes. `scope` is the op's name-stack path: the
+    event's `name` stat (library calls such as cuDNN convolutions carry
+    it, e.g. "jit(step_fn)/jvp(student)/mnv2_f0_f6/conv"), else the
+    op_name in `op_names` of its `hlo_op` stat or of its own name (XLA's
+    fusion kernels), else the event name."""
+    import jax
+
+    pd = jax.profiler.ProfileData.from_file(xplane_path)
+    out = []
+    for plane in pd.planes:
+        if not plane.name.startswith("/device:GPU"):
             continue
-        meta = plane.event_metadata
-        stats_meta = plane.stat_metadata
         for line in plane.lines:
-            if line.name not in ("XLA Ops",):
+            # derived timelines duplicate the stream kernels
+            if line.name in ("XLA Modules", "XLA Ops", "Steps",
+                             "XLA TraceMe", "Source"):
                 continue
-            agg = collections.defaultdict(lambda: [0, 0])
             for ev in line.events:
-                m = meta[ev.metadata_id]
-                agg[m.name][0] += ev.duration_ps
-                agg[m.name][1] += 1
-            for name, (ps, n) in agg.items():
-                rows.append((ps, n, name))
-    if not rows:
-        # CPU fallback / different plane naming: take the busiest plane
-        for plane in space.planes:
-            for line in plane.lines:
-                agg = collections.defaultdict(lambda: [0, 0])
-                for ev in line.events:
-                    m = plane.event_metadata[ev.metadata_id]
-                    agg[m.name][0] += ev.duration_ps
-                    agg[m.name][1] += 1
-                for name, (ps, n) in agg.items():
-                    rows.append((ps, n, f"{plane.name}::{line.name}::{name}"))
-    rows.sort(reverse=True)
-    return rows
+                st = _stats(ev)
+                names = op_names or {}
+                scope = str(st.get("name")
+                            or names.get(str(st.get("hlo_op")))
+                            or names.get(ev.name) or ev.name)
+                out.append((plane.name, line.name, ev.name, ev.start_ns,
+                            ev.duration_ns, scope))
+    return out
 
 
-_KIND_RX = re.compile(r"=\s.*?\s([a-z][a-z0-9\-]+)\(")
+def busy_ns(events) -> float:
+    """Union of the events' intervals per device plane, summed."""
+    total = 0.0
+    by_plane = collections.defaultdict(list)
+    for plane, _, _, start, dur, _ in events:
+        by_plane[plane].append((start, start + dur))
+    for ivs in by_plane.values():
+        ivs.sort()
+        cur_s, cur_e = ivs[0]
+        for s, e in ivs[1:]:
+            if s > cur_e:
+                total += cur_e - cur_s
+                cur_s, cur_e = s, e
+            else:
+                cur_e = max(cur_e, e)
+        total += cur_e - cur_s
+    return total
 
 
-def categorize(name: str) -> str:
-    """Extract the HLO op kind (the identifier right before the operand list;
-    operand refs carry a % prefix so they never match)."""
-    m = _KIND_RX.search(name)
-    return m.group(1) if m else "unknown"
+def reduce_trace(events, steps: int, top: int) -> dict:
+    """Per-step device numbers from the kernel events of `steps` steps."""
+    if not events:
+        raise RuntimeError("the trace holds no GPU kernel events")
+    starts = [e[3] for e in events]
+    ends = [e[3] + e[4] for e in events]
+    window = max(ends) - min(starts)
+    busy = busy_ns(events)
+    kernel_sum = sum(e[4] for e in events)
+    per_op = collections.Counter()
+    for e in events:
+        per_op[e[2]] += e[4]
+    groups = {g: sum(e[4] for e in events if g in e[5]) for g in GROUPS}
+    loss_up = sum(e[4] for e in events
+                  if "kd_loss" in e[5] or "logits_upsample" in e[5])
+    return {
+        "steps": steps,
+        "device_busy_ms_per_step": busy / steps / 1e6,
+        "kernel_sum_ms_per_step": kernel_sum / steps / 1e6,
+        "window_ms_per_step": window / steps / 1e6,
+        "idle_share": 1.0 - busy / window,
+        "group_ms_per_step": {g: v / steps / 1e6 for g, v in groups.items()},
+        "group_share_of_kernel_time": {
+            g: v / kernel_sum for g, v in groups.items()},
+        "loss_plus_upsample_share": loss_up / kernel_sum,
+        "mnv2_f0_f6_share": groups["mnv2_f0_f6"] / kernel_sum,
+        "scoped_share": sum(e[4] for e in events
+                            if any(g in e[5] for g in GROUPS)) / kernel_sum,
+        "top_ops_ms_per_step": [(n, v / steps / 1e6)
+                                for n, v in per_op.most_common(top)],
+    }
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--teacher", default="deeplabv3plus_resnet101")
-    ap.add_argument("--student", default="deeplabv3plus_mobilenet")
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--hw", type=int, default=513)
-    ap.add_argument("--scope", default="classifier")
-    ap.add_argument("--top", type=int, default=40)
     ap.add_argument("--steps", type=int, default=3)
-    ap.add_argument("--what", default="kd",
-                    choices=["kd", "teacher", "student", "student_step",
-                             "head"])
+    ap.add_argument("--top", type=int, default=30)
     ap.add_argument("--dir", default=None, help="keep the trace here")
+    ap.add_argument("--json", default=None, help="write the reduction here")
+    ap.add_argument("--trace", default=None,
+                    help="reduce this recorded .xplane.pb instead of running")
+    ap.add_argument("--hlo", default=None,
+                    help="with --trace: the step's compiled HLO text")
     opts = ap.parse_args(argv)
+    if opts.trace:
+        names = None
+        if opts.hlo:
+            with open(opts.hlo) as f:
+                names = hlo_op_names(f.read())
+        red = reduce_trace(device_events(opts.trace, names), opts.steps,
+                           opts.top)
+        _report(red, f"recorded trace {opts.trace}", opts.json)
+        return 0
 
     import jax
-    import jax.numpy as jnp
-    import numpy as np
-    from flax import nnx
 
-    from kd_cheap_conv_tpu.kd import KDConfig, replace_cheap_convs
-    from kd_cheap_conv_tpu.kd.replace import CheapConvSpec
-    from kd_cheap_conv_tpu.models import build_model
-    from kd_cheap_conv_tpu.train import make_kd_train_step, make_optimizer
+    from bench import build_workload, time_steps
+    from kd_cheap_conv.runtime import (enable_compile_cache,
+                                       gpu_name_and_power_limit)
 
-    dtype = jnp.bfloat16
-    rng = np.random.RandomState(0)
-    images_np = rng.randn(opts.batch, opts.hw, opts.hw, 3).astype(np.float32)
-    labels = jnp.asarray(rng.randint(0, 21, (opts.batch, opts.hw, opts.hw)),
-                         jnp.int32)
-
-    if opts.what in ("teacher", "student"):
-        name = opts.teacher if opts.what == "teacher" else opts.student
-        model = build_model(name, num_classes=21, output_stride=16,
-                            dtype=dtype, rngs=nnx.Rngs(0))
-        if opts.what != "teacher":
-            replace_cheap_convs(model, CheapConvSpec(kind="separable"),
-                                scope=opts.scope)
-        model.eval()
-        graphdef, mstate = nnx.split(model)
-
-        @jax.jit
-        def fwd(mstate, images):
-            m = nnx.merge(graphdef, mstate)
-            return m(images, class_major=True)
-
-        def run_once():
-            nonlocal mstate
-            out = fwd(mstate, images)
-            jax.block_until_ready(out)
-    elif opts.what == "head":
-        # ASPP + decoder + classifier fwd+bwd only (train mode), driven from
-        # precomputed backbone features — isolates the 11 ms aspp+decoder
-        # cluster (VERDICT r3 item 3) without backbone noise
-        model = build_model(opts.student, num_classes=21, output_stride=16,
-                            dtype=dtype, rngs=nnx.Rngs(0))
-        replace_cheap_convs(model, CheapConvSpec(kind="separable"),
-                            scope=opts.scope)
-        model.train()
-        graphdef, params, rest = nnx.split(model, nnx.Param, ...)
-        # merge a fresh backbone INSIDE the jit: train-mode fused chains
-        # mutate BatchStat, which raises TraceContextError on a module
-        # captured from outside the trace
-        bgd, bstate = nnx.split(model.backbone)
-        feats = jax.jit(lambda s: nnx.merge(bgd, s)(
-            jnp.asarray(images_np, dtype)))(bstate)
-        feats = jax.tree.map(jax.lax.stop_gradient, feats)
-        carry0 = jnp.zeros((), jnp.float32)
-
-        @jax.jit
-        def prog(params, rest, carry):
-            m = nnx.merge(graphdef, params, rest)
-
-            def loss_fn(m):
-                f = {k: v + carry.astype(v.dtype) for k, v in feats.items()}
-                y = m.classifier(f)
-                return jnp.sum(y.astype(jnp.float32) ** 2) * 1e-6
-
-            loss, grads = nnx.value_and_grad(loss_fn)(m)
-            gsum = sum(jnp.sum(g.astype(jnp.float32))
-                       for g in jax.tree.leaves(grads))
-            return (loss + gsum) * 1e-9
-
-        state_c = [carry0]
-
-        def run_once():
-            state_c[0] = prog(params, rest, state_c[0])
-            jax.block_until_ready(state_c[0])
-    elif opts.what == "student_step":
-        # student fwd+bwd+SGD only (plain CE step) — isolates the student
-        # side of the KD budget
-        from kd_cheap_conv_tpu.train import make_train_step
-
-        model = build_model(opts.student, num_classes=21, output_stride=16,
-                            dtype=dtype, rngs=nnx.Rngs(0))
-        replace_cheap_convs(model, CheapConvSpec(kind="separable"),
-                            scope=opts.scope)
-        _, params, _ = nnx.split(model, nnx.Param, ...)
-        tx = make_optimizer(params, lr=1e-3, max_iters=10_000)
-        init_state, sstep = make_train_step(model, tx)
-        state = init_state()
-
-        def run_once():
-            nonlocal state
-            state, metrics = sstep(state, (images, labels))
-            jax.block_until_ready(metrics["loss"])
-    else:
-        teacher = build_model(opts.teacher, num_classes=21, output_stride=16,
-                              dtype=dtype, rngs=nnx.Rngs(0))
-        student = build_model(opts.student, num_classes=21, output_stride=16,
-                              dtype=dtype, rngs=nnx.Rngs(1))
-        replace_cheap_convs(student, CheapConvSpec(kind="separable"),
-                            scope=opts.scope)
-        cfg = KDConfig(temperature=4.0, alpha=0.5, beta=0.5)
-        _, params, _ = nnx.split(student, nnx.Param, ...)
-        tx = make_optimizer({"student": params}, lr=1e-3, max_iters=10_000,
-                            label_fn=lambda d: (
-                                "backbone" if d.startswith("student.backbone")
-                                else "head"))
-        init_state, step_fn, t_state = make_kd_train_step(
-            student, teacher, tx, cfg)
-        state = init_state()
-
-        def run_once():
-            nonlocal state
-            state, metrics = step_fn(state, (images, labels), t_state)
-            jax.block_until_ready(metrics["loss"])
-
-    # host-S2D packing, same condition as bench.py — the slow-path combo
-    # (NW handoff x packed input) is invisible without it
-    from kd_cheap_conv_tpu import config as kdcc_config
-    from kd_cheap_conv_tpu.ops.conv import (s2d_pack,
-                                            s2d_pack_channel_sublane,
-                                            supports_host_s2d)
-
-    consumers = ([teacher, student] if opts.what == "kd" else [model])
-    if (kdcc_config.host_s2d_enabled()
-            and all(supports_host_s2d(m) for m in consumers)):
-        images_np = s2d_pack(images_np, channel_sublane=(
-            s2d_pack_channel_sublane(*consumers)))
-    images = jnp.asarray(images_np)
-
-    run_once()  # compile
-    run_once()
+    enable_compile_cache()
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        raise SystemExit(f"needs a GPU, JAX found {dev.platform}")
+    card = gpu_name_and_power_limit()
+    w = build_workload(batch=opts.batch, hw=opts.hw)
+    time_steps(w, iters=2, warmup=1)
 
     prof_dir = opts.dir or tempfile.mkdtemp(prefix="kdprof_")
+    state = w["state"]
     jax.profiler.start_trace(prof_dir)
-    for _ in range(opts.steps):
-        run_once()
+    for i in range(opts.steps):
+        with jax.profiler.StepTraceAnnotation("kd_step", step_num=i):
+            state, metrics = w["step_fn"](state, w["batch"], w["t_state"])
+        jax.block_until_ready(metrics["loss"])
     jax.profiler.stop_trace()
 
-    rows = parse_xplane(prof_dir, top=opts.top)
-    total_ps = sum(r[0] for r in rows)
-    print(f"\n=== {opts.what} @ b{opts.batch}/{opts.hw}² — {opts.steps} steps, "
-          f"device busy total {total_ps / 1e9 / opts.steps:.2f} ms/step ===")
-    by_cat = collections.defaultdict(int)
-    for ps, n, name in rows:
-        by_cat[categorize(name)] += ps
-    for cat, ps in sorted(by_cat.items(), key=lambda kv: -kv[1]):
-        print(f"  {cat:>10}: {ps / 1e9 / opts.steps:8.2f} ms/step "
-              f"({100 * ps / total_ps:.1f}%)")
-    print(f"\n top {opts.top} ops (ms/step over {opts.steps} steps):")
-    for ps, n, name in rows[:opts.top]:
-        print(f"  {ps / 1e9 / opts.steps:8.3f}  x{n:<4} {name[:110]}")
+    paths = sorted(glob.glob(os.path.join(prof_dir, "**", "*.xplane.pb"),
+                             recursive=True), key=os.path.getmtime)
+    hlo = w["step_fn"].lower(state, w["batch"], w["t_state"]).compile()
+    hlo_path = os.path.join(prof_dir, "step.hlo.txt")
+    with open(hlo_path, "w") as f:
+        f.write(hlo.as_text())
+    red = reduce_trace(device_events(paths[-1], hlo_op_names(hlo.as_text())),
+                       opts.steps, opts.top)
+    red.update({"device_kind": dev.device_kind, "card": card,
+                "batch": opts.batch, "hw": opts.hw, "trace": paths[-1]})
+    _report(red, f"KD step b{opts.batch}/{opts.hw}², {dev.device_kind} "
+                 f"({card})", opts.json)
     return 0
+
+
+def _report(red: dict, title: str, json_path) -> None:
+    print(f"=== {title}: {red['steps']} traced steps ===")
+    print(f"device busy {red['device_busy_ms_per_step']:.3f} ms/step, "
+          f"window {red['window_ms_per_step']:.3f} ms/step, idle share "
+          f"{red['idle_share']:.4f}")
+    for g, v in red["group_ms_per_step"].items():
+        print(f"  {g:>16}: {v:9.3f} ms/step "
+              f"({100 * red['group_share_of_kernel_time'][g]:.1f}% of "
+              f"kernel time)")
+    print(f"  loss+upsample share {red['loss_plus_upsample_share']:.4f}, "
+          f"mnv2 f0-f6 share {red['mnv2_f0_f6_share']:.4f}, scoped share "
+          f"{red['scoped_share']:.4f}")
+    print(f"top {len(red['top_ops_ms_per_step'])} device ops (ms/step):")
+    for name, ms in red["top_ops_ms_per_step"]:
+        print(f"  {ms:9.3f}  {name[:110]}")
+    if json_path:
+        with open(json_path, "w") as f:
+            json.dump(red, f, indent=1)
 
 
 if __name__ == "__main__":

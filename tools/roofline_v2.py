@@ -1,64 +1,52 @@
-"""Traffic-complete roofline for the FULL KD train step (v5e: 197 bf16
-TFLOP/s, 819 GB/s HBM) — the auditable bound revision VERDICT round 2 asked
-for ("a measured per-cluster achievable-bound revision ... the driver can
-audit").
+"""Traffic-complete roofline for the FULL KD train step, against the peaks
+of one device kind (utils.flops.PEAKS).
 
-What it does differently from the v1 bound (conv-only, used by bench.py
-through round 2):
+What it counts, beside the v1 bound (conv-only, forward graphs, student
+backward modelled as 3x forward): it traces the REAL jitted train step
+(teacher fwd + student fwd/bwd + loss + SGD) and walks the whole jaxpr:
 
-  v1: conv-only, forward graphs, student backward modeled as 3x forward.
-  v2: traces the REAL jitted train step (teacher fwd + student fwd/bwd +
-      loss + SGD) under config.stock_graph() and walks the whole jaxpr:
+  - conv_general_dilated  max(FLOPs/peak, bytes/bw) — this counts the
+    actual dgrad/wgrad convs of the backward (they appear as convs in the
+    grad jaxpr), not a heuristic multiple;
+  - dot_general           same model (loss matmuls, bilinear-resize
+    matmuls, hint adapters);
+  - large-large `add`     one extra read of the smaller operand: a
+    residual add y = conv_out + skip can fuse into the producer's epilogue,
+    but the skip stream still must be read;
+  - reduce_window / select_and_scatter_add (maxpool fwd/bwd) at bytes
+    in+out;
+  - everything else       0 — the ideal-fusion assumption. BN moments and
+    normalize-applies fuse into producer epilogues / consumer prologues;
+    elementwise chains are free. This keeps v2 a LOWER bound, not a model
+    of XLA's achieved fusion.
 
-      - conv_general_dilated  max(FLOPs/peak, bytes/bw) — this now counts
-        the actual dgrad/wgrad convs of the backward (they appear as convs
-        in the grad jaxpr), not a heuristic multiple;
-      - dot_general           same model (loss matmuls, bilinear-resize
-        matmuls, hint adapters);
-      - large-large `add`     one extra HBM read of the smaller operand:
-        a residual add y = conv_out + skip can fuse into the producer's
-        epilogue, but the skip stream still must be read — mandatory
-        traffic the conv-only bound ignores (measured 0.42 ms per teacher
-        layer1 residual in the round-3 xplane profile);
-      - reduce_window / select_and_scatter_add (maxpool fwd/bwd) at
-        bytes in+out;
-      - everything else       0 — the ideal-fusion assumption. BN moments
-        and normalize-applies fuse into producer epilogues / consumer
-        prologues; elementwise chains are free. This keeps v2 a LOWER
-        bound, not a model of XLA's achieved fusion.
-
-Measured v2 output at b16/513² (config #2 shape): convs 29.54 ms (304 convs,
-261 bandwidth-bound, 3.11 TFLOP, 18.1 GB), dots 1.80, residuals 2.72
-(47 adds, 2.2 GB), pool 0.21 → 34.27 ms → 466.9 img/s, target@90% = 420.2.
-The v1 conv-only estimate (29.2 ms → 547 img/s) is confirmed by the exact
-backward accounting (29.54 ms of convs) — the revision is the +4.7 ms of
-mandatory non-conv streams, not a re-litigation of the conv number.
-
-Run: JAX_PLATFORMS=cpu python tools/roofline_v2.py  (trace only, ~1 min).
+Run (trace only, no device work):
+  JAX_PLATFORMS=cpu python tools/roofline_v2.py [--device_kind KIND]
 """
 
 from __future__ import annotations
 
+import argparse
 import json
+import os
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def full_step_bound(batch: int = 16, hw: int = 513,
+def full_step_bound(batch: int, hw: int, device_kind: str,
                     student_name: str = "deeplabv3plus_mobilenet",
                     scope="classifier", verbose: bool = True):
-    """Bound for the bench.py workload via the shared stock-rebuild helper
-    (utils.flops.kd_step_stock_bound — the round-4 integrity fix: the whole
-    workload is rebuilt fresh inside config.stock_graph() so construction-
-    time Pallas decisions and pjit's warmup-keyed jaxpr cache cannot leak
-    fast paths into the trace). bench.py computes its denominator through
-    the SAME call, so this CLI's output and the driver-recorded target are
-    one number by construction."""
-    from kd_cheap_conv_tpu.utils.flops import kd_step_stock_bound
+    """Bound for the bench.py workload (utils.flops.kd_step_bound)."""
+    from kd_cheap_conv.utils.flops import device_peaks, kd_step_bound
 
-    v1_img_s, bound, acc, _ = kd_step_stock_bound(
-        batch, hw, student_name=student_name, scope=scope)
+    peak_flops, hbm_bw = device_peaks(device_kind)
+    v1_img_s, bound, acc, _ = kd_step_bound(
+        batch, hw, peak_flops=peak_flops, hbm_bw=hbm_bw,
+        student_name=student_name, scope=scope)
     if verbose:
         print(f"== roofline v2: full-step traffic-complete bound "
-              f"(b{batch}/{hw}²) ==")
+              f"(b{batch}/{hw}², {device_kind}) ==")
         print(f"  convs      {acc['conv_s']*1e3:7.2f} ms   "
               f"n={acc['conv_n']} ({acc['conv_bw_bound_n']} bw-bound)  "
               f"{acc['conv_flops']/1e12:.2f} TFLOP  "
@@ -69,15 +57,19 @@ def full_step_bound(batch: int = 16, hw: int = 513,
               f"n={acc['resid_n']}  {acc['resid_bytes']/1e9:.1f} GB")
         print(f"  pool       {acc['pool_s']*1e3:7.2f} ms   n={acc['pool_n']}")
         print(f"  TOTAL      {bound*1e3:7.2f} ms  -> "
-              f"{batch/bound:.1f} img/s  (target@90% "
-              f"{0.9*batch/bound:.1f})  [v1 conv-only {v1_img_s:.1f}]")
+              f"{batch/bound:.1f} img/s  [v1 conv-only {v1_img_s:.1f}]")
     return bound, acc
 
 
 if __name__ == "__main__":
-    bound, acc = full_step_bound()
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--batch", type=int, default=16)
+    ap.add_argument("--hw", type=int, default=513)
+    ap.add_argument("--device_kind", default="NVIDIA H100 80GB HBM3")
+    opts = ap.parse_args()
+    bound, acc = full_step_bound(opts.batch, opts.hw, opts.device_kind)
     print(json.dumps({
-        "bound_ms": round(bound * 1e3, 2),
-        "roofline_img_s": round(16 / bound, 2),
-        "target_img_s": round(0.9 * 16 / bound, 2),
+        "device_kind": opts.device_kind,
+        "bound_ms": bound * 1e3,
+        "roofline_img_s": opts.batch / bound,
     }))
